@@ -1,4 +1,4 @@
-"""nbldpc_tpu — TPU-native non-binary LDPC decode-and-simulate framework.
+"""nbldpc_tpu — non-binary LDPC decode-and-simulate framework in JAX.
 
 A from-scratch JAX/XLA/Pallas implementation of the full NB-LDPC pipeline
 (capability target: YongonY/NBLDPC, per SURVEY.md; the reference repo was
@@ -10,7 +10,7 @@ unavailable, so component parity is tracked against SURVEY.md §2):
   - systematic encoder over GF(q)                        (encode.py)
   - BPSK binary-image modulation, AWGN, LLR-vector init  (channel.py)
   - QSPA / EMS / T-EMS iterative decoders                (decoders/)
-  - Pallas TPU kernels for the hot check-node updates    (kernels/)
+  - WHT + fused GPU QSPA check-node kernel              (kernels/)
   - mesh sharding (codewords x SNR points) + collectives (parallel/)
   - Monte-Carlo BER/FER simulation engine                (sim.py)
 """

@@ -53,9 +53,10 @@ def llr_init(y: jnp.ndarray, sigma, q: int) -> jnp.ndarray:
     """
     bits = jnp.asarray(get_field(q).bits, dtype=y.dtype)   # [q, p]
     scale = 2.0 / (jnp.asarray(sigma) ** 2)
-    # highest precision: the [.., p] x [q, p] contraction is tiny, and bf16
-    # MXU default would quantize the channel LLRs that every decoder and the
-    # f64 oracle consume.
+    # highest precision: the [.., p] x [q, p] contraction is tiny, and a
+    # default-precision f32 dot may run in TF32 or bf16 on an accelerator,
+    # which would quantize the channel LLRs that every decoder and the f64
+    # oracle consume.
     llr = -jnp.einsum("...np,qp->...nq", y, bits, precision="highest")
     return scale * llr
 

@@ -4,7 +4,7 @@
         --set decoder.max_iters=50 --set "channel.ebn0_db=[1.0,1.5,2.0]"
     python -m nbldpc_tpu run --code gf4_n96_k48 --decoder qspa --snr 2.5
     python -m nbldpc_tpu gen-codes         # regenerate codes/*.alist
-    python -m nbldpc_tpu bench             # single-chip throughput benchmark
+    python -m nbldpc_tpu bench             # one-GPU throughput benchmark
 """
 
 from __future__ import annotations
@@ -12,12 +12,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 import sys
-
-# Persistent XLA compilation cache (slow-compile dev hosts; harmless on TPU).
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/nbldpc_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
 
 
 def _add_run_parser(sub):
@@ -31,11 +26,29 @@ def _add_run_parser(sub):
     p.add_argument("--iters", type=int)
     p.add_argument("--frames", type=int, help="max frames per SNR")
     p.add_argument("--report", help="write JSON report to this path")
-    p.add_argument("--mesh-snr", type=int, default=1)
-    p.add_argument("--mesh-data", type=int, default=0)
+    p.add_argument("--mesh-snr", type=int,
+                   help="devices along 'snr' (overrides the config's mesh)")
+    p.add_argument("--mesh-data", type=int,
+                   help="devices along 'data'; 0 = all remaining "
+                        "(overrides the config's mesh)")
     p.add_argument("--no-mesh", action="store_true")
     p.add_argument("--profile", help="jax.profiler trace dir")
     p.add_argument("--random-codewords", action="store_true")
+
+
+def build_mesh(cfg, args):
+    """The ('snr', 'data') mesh for a run, or None on one device or with
+    --no-mesh. The config's mesh section sets the shape; a --mesh-snr or
+    --mesh-data flag overrides its axis."""
+    import jax
+
+    from nbldpc_tpu.parallel import mesh as meshmod
+
+    if args.no_mesh or len(jax.devices()) == 1:
+        return None
+    snr = cfg.mesh.snr if args.mesh_snr is None else args.mesh_snr
+    data = cfg.mesh.data if args.mesh_data is None else args.mesh_data
+    return meshmod.make_mesh(snr=snr, data=data)
 
 
 def cmd_run(args) -> int:
@@ -65,14 +78,12 @@ def cmd_run(args) -> int:
 
     import jax
     from nbldpc_tpu import sim
-    from nbldpc_tpu.parallel import dist, mesh as meshmod
+    from nbldpc_tpu.parallel import dist
     from nbldpc_tpu.utils import report as rep
 
     rep.setup_logging()
     dist.initialize()
-    mesh = None
-    if not args.no_mesh and len(jax.devices()) > 1:
-        mesh = meshmod.make_mesh(snr=args.mesh_snr, data=args.mesh_data)
+    mesh = build_mesh(cfg, args)
 
     def progress(t, counters):
         rep.emit_step_record(t, counters)
@@ -118,6 +129,9 @@ def cmd_bench(_args) -> int:
 
 
 def main(argv=None) -> int:
+    from nbldpc_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="nbldpc")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_run_parser(sub)

@@ -1,6 +1,6 @@
 """Non-binary parity-check code: spec container + alist-style file I/O.
 
-TPU-native design (SURVEY.md §2.1 C2): the parser runs on host and produces a
+Design (SURVEY.md §2.1 C2): the parser runs on host and produces a
 `CodeSpec` of plain numpy arrays; `graph.py` turns it into the flat device
 index arrays the decoders gather over.
 

@@ -77,7 +77,7 @@ def _peg_structure(n: int, m: int, dv: np.ndarray, rng: np.random.Generator):
             dist = _bfs_dist(v)
             # degree-constrained PEG: restrict to minimum-degree checks first
             # (keeps row degrees balanced to ceil/floor(E/M) — dense padded
-            # compute on TPU pays for dc_max, so balance beats a little girth),
+            # compute pays for dc_max, so balance beats a little girth),
             # then among those pick the farthest (girth), then seeded choice.
             cand = np.arange(m)[~np.asarray([c in vn_checks[v] for c in range(m)])]
             if len(cand) == 0:
@@ -106,13 +106,14 @@ def make_peg_code(
     "chunk8" = one seeded weight TUPLE per aligned 8-row group, shared by
     the group's rows (slot j of every row in group g carries the same
     weight). Check-row indices are arbitrary labels, so this costs nothing
-    structurally (PEG graph unchanged) — but it makes the resident
-    kernels' per-edge rotation amounts uniform over aligned 8-row chunks,
-    collapsing their conditional rotation blends to static rolls
-    (qspa_resident._rot_chunks) with ZERO row inflation, unlike the
-    per-slot-uniform QC mode (which measured a ~0.5 dB FER loss —
-    fer_curves_r5). ceil(m/8) * dc independent tuples keep the edge-label
-    diversity high; FER validated against "random" in fer_curves_r5.
+    structurally (PEG graph unchanged) — but it makes per-edge GF rotation
+    amounts uniform over aligned 8-row chunks, which a kernel that rotates
+    messages per edge can turn into static shifts, with ZERO row
+    inflation, unlike the per-slot-uniform QC mode (which showed a ~0.5 dB
+    FER loss). ceil(m/8) * dc independent tuples keep the edge-label
+    diversity high; its FER matched "random" at the one SNR point tried.
+    The decoders here fold the permutations into the routing gathers and
+    gain nothing from it (ROADMAP: design debts).
     """
     gf = get_field(q)
     dv_arr = np.full(n, dv, dtype=np.int64)
@@ -151,15 +152,12 @@ def make_qc_code(
 ) -> CodeSpec:
     """Quasi-cyclic NB-LDPC code: H is an (m/z) x (n/z) array of z x z
     circulant blocks (identity shifted by a seeded exponent), each circulant
-    carrying ONE uniform GF(q)* weight (SURVEY.md C2 / round-4 verdict item
-    6; ROOFLINE.md path 3).
+    carrying ONE uniform GF(q)* weight (SURVEY.md C2).
 
     Why: per-circulant-uniform weights make the per-edge GF rotation amount
-    constant over aligned row blocks, so the resident kernels' conditional
-    rotation blends collapse to STATIC rolls (1 materialization per
-    rotation instead of rot_bits blend stages) — a code-construction lever
-    on the kernels' largest measured cost bucket. FER must be re-validated
-    against the PEG codes (benchmarks/fer_curves.py --qc).
+    constant over aligned row blocks, which a kernel that rotates messages
+    per edge can turn into STATIC shifts. FER must be re-validated against
+    the PEG codes (benchmarks/fer_curves.py --qc).
 
     The z x z macro structure is built with the same degree-balanced PEG
     greedy on the base graph (macro-girth maximization lifts to girth
@@ -168,10 +166,9 @@ def make_qc_code(
     weight_mode: "circulant" = one weight per circulant (rotation amounts
     uniform over z-row blocks); "slot" = one weight per sorted slot
     position shared by ALL circulants in that column position (rotation
-    amounts uniform over each entire slot block — the form the resident
-    kernels turn into single static rolls, since slot blocks are always
-    sublane-aligned regardless of z). "slot" trades edge-label diversity
-    for kernel speed and must clear FER validation.
+    amounts uniform over each entire slot block, whatever z is). "slot"
+    trades edge-label diversity for static rotations and must clear FER
+    validation.
     """
     if n % z or m % z:
         raise ValueError(f"z={z} must divide n={n} and m={m}")
@@ -225,11 +222,10 @@ STANDARD_CODES = {
     "gf256_n255_k175": (255, 80, 256, 2, 1),
 }
 
-# QC twins of the BASELINE shapes (round 5, VERDICT item 6): same (n, k, q),
-# quasi-cyclic structure. "slot" weight mode where it reaches full rank
-# (GF(16): z=34 — z=17 and per-slot GF(4) weights are rank-blocked, the
-# diversity cost of slot uniformity is real); "circulant" mode with z=8 for
-# GF(4) (8-aligned blocks still hit the kernels' static rotation path).
+# QC twins of the BASELINE shapes: same (n, k, q), quasi-cyclic structure.
+# "slot" weight mode where it reaches full rank (GF(16): z=34 — z=17 and
+# per-slot GF(4) weights are rank-blocked, the diversity cost of slot
+# uniformity is real); "circulant" mode with z=8 for GF(4).
 STANDARD_CODES_QC = {
     # name: (n, m, q, z, dv, seed, weight_mode)
     "gf4_n96_k48_qc": (96, 48, 4, 8, 2, 1, "circulant"),
@@ -237,8 +233,8 @@ STANDARD_CODES_QC = {
 }
 
 # chunk8 PEG twins: the SAME PEG Tanner graph as the baseline codes, with
-# per-8-row-group weight tuples (static rotation path, zero structural
-# change — see make_peg_code weight_mode).
+# per-8-row-group weight tuples (zero structural change — see
+# make_peg_code weight_mode).
 STANDARD_CODES_C8 = {
     "gf4_n96_k48_c8": (96, 48, 4, 2, 1),
     "gf16_n204_k102_c8": (204, 102, 16, 2, 1),

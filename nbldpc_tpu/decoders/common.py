@@ -133,11 +133,11 @@ def _decision(graph: TannerGraph, llr, C):
 
 
 # ---------------------------------------------------------------------------
-# Batch-last fast path (TPU layout: lane axis = Monte-Carlo batch)
+# Batch-last path (the one the simulator runs: Monte-Carlo batch last)
 #
-# Messages: [M, dc_max, q, B]; priors: [N, q, B]; hard: [N, B]. Every VPU op
-# runs on full 128-lane vectors over B, routing gathers move contiguous
-# length-B rows, and reductions are over small leading/sublane axes.
+# Messages: [M, dc_max, q, B]; priors: [N, q, B]; hard: [N, B]. Elementwise
+# ops run over contiguous frames, routing gathers move contiguous length-B
+# rows, and reductions are over small leading axes.
 # Semantics are identical to the q-last path above (same update equations).
 # ---------------------------------------------------------------------------
 
@@ -192,9 +192,8 @@ def decode_bl(
 
     stats_each_iter=False (fixed-budget throughput mode, forced True when
     early_term is set) skips the per-iteration argmax + syndrome — at large
-    q those cost a meaningful slice of the iteration (e.g. ~25% at GF(256))
-    and only the post-loop decision affects the outputs; iters then reports
-    max_iters, matching the resident kernels' contract."""
+    q those cost a meaningful slice of the iteration, and only the post-loop decision affects the outputs; iters then reports
+    max_iters (0 for frames already satisfied at initialization)."""
     B = llr.shape[0]
     stats_each_iter = bool(stats_each_iter) or early_term
     llr = jnp.transpose(llr, (1, 2, 0))                       # [N, q, B]
@@ -224,9 +223,9 @@ def decode_bl(
         if not stats_each_iter:
             # st.done is frozen at its init value in this mode, so frames
             # whose syndrome was already satisfied at initialization report
-            # 0 iterations — matching the resident kernels' throughput-mode
-            # contract (iters + (1 - done0)); everyone else reports
-            # max_iters (round-4 advisor finding).
+            # 0 iterations (iters = max_iters * (1 - done0)); everyone
+            # else reports
+            # max_iters.
             return st._replace(
                 Cv=Cv,
                 posterior=posterior,

@@ -18,7 +18,7 @@ computed configuration values (no output truncation; common in software EMS
 and never worse). The numpy oracle (tests/reference_model.py::_cn_ems)
 implements the identical scheme independently.
 
-TPU-native formulation — static shapes, no dynamic gathers, no sorts:
+Formulation — static shapes, no dynamic gathers, no sorts:
   - top-nm extraction: nm unrolled steps of (max over q, first-occurrence
     argmax via masked-iota min, remove-one) — exact stable-sort tie-break;
   - merges for q <= 64: scan ALL q symbols of the masked operand with
@@ -28,8 +28,7 @@ TPU-native formulation — static shapes, no dynamic gathers, no sorts:
     decomposed into p conditional static permutes, nm*O(p) — this is what
     makes GF(256) nm=16 tractable (the round-1 per-element gather path was
     judged unusable there).
-Both strategies compute the same function. kernels/cn_ems.py holds the fused
-Pallas kernel (K2) with identical semantics.
+Both strategies compute the same function.
 """
 
 from __future__ import annotations
@@ -45,8 +44,10 @@ from nbldpc_tpu.graph import TannerGraph
 
 NEG = -1e30
 
-# Merge strategy cutover: scan-all-q with static permutes costs ~5q VPU ops,
-# the top-nm dynamic-XOR scan ~nm*(4p+2); the static variant wins up to q=64.
+# Merge strategy cutover: scan-all-q with static permutes costs ~5q vector
+# ops, the top-nm dynamic-XOR scan ~nm*(4p+2); by that op count the static
+# variant wins up to q=64. The cutover was chosen from op counts on the
+# first target and has not been measured on the GPU.
 DENSE_MERGE_MAX_Q = 64
 
 
@@ -56,31 +57,24 @@ def _delta0(q: int, dtype=jnp.float32):
 
 
 def _xor_take(x: jnp.ndarray, h: int, q: int, axis: int) -> jnp.ndarray:
-    """Static XOR permute along `axis`: out[.., a, ..] = x[.., a ^ h, ..].
-
-    XLA path: a static-index take (lowered to lane/sublane shuffles on TPU).
-    The Pallas K2 kernel substitutes a roll+select implementation via the
-    xor_take hook (Mosaic has no static gather)."""
+    """Static XOR permute along `axis`: out[.., a, ..] = x[.., a ^ h, ..]."""
     idx = np.arange(q) ^ h
     return jnp.take(x, idx, axis=axis)
 
 
-def _xor_perm_dyn(
-    x: jnp.ndarray, z: jnp.ndarray, q: int, axis: int, xor_take=_xor_take
-) -> jnp.ndarray:
+def _xor_perm_dyn(x: jnp.ndarray, z: jnp.ndarray, q: int,
+                  axis: int) -> jnp.ndarray:
     """Data-dependent XOR permute along `axis`: out[a] = x[a ^ z].
 
     z: int32 with size-1 `axis` (broadcasts). Decomposes into p conditional
     STATIC permutes (one per bit of z) — no dynamic gathers."""
     for t in range(q.bit_length() - 1):
-        xp = xor_take(x, 1 << t, q, axis)
+        xp = _xor_take(x, 1 << t, q, axis)
         x = jnp.where(((z >> t) & 1) != 0, xp, x)
     return x
 
 
 def _iota(q: int, ndim: int, axis: int):
-    # broadcasted_iota (not a materialized arange) so kernels that call this
-    # capture no constants (pallas_call requires all constants as inputs)
     shape = [1] * ndim
     shape[axis % ndim] = q
     return jax.lax.broadcasted_iota(jnp.int32, tuple(shape), axis % ndim)
@@ -124,8 +118,7 @@ def _bitrev(x: int, p: int) -> int:
     return r
 
 
-def _merge_dense(accM: jnp.ndarray, opM: jnp.ndarray, q: int, axis: int,
-                 xor_take=_xor_take):
+def _merge_dense(accM: jnp.ndarray, opM: jnp.ndarray, q: int, axis: int):
     """out[a] = max_b opM[b] + accM[a ^ b], all-q scan with static permutes.
 
     The scan walks b in BIT-REVERSED GRAY-CODE order, so each step's accM
@@ -145,7 +138,7 @@ def _merge_dense(accM: jnp.ndarray, opM: jnp.ndarray, q: int, axis: int,
     for g in range(q):
         b = _bitrev(g ^ (g >> 1), p)                       # reflected Gray
         if b ^ prev:
-            acc_g = xor_take(acc_g, b ^ prev, q, axis)
+            acc_g = _xor_take(acc_g, b ^ prev, q, axis)
         prev = b
         opb = jax.lax.index_in_dim(opM, b, axis % opM.ndim, keepdims=True)
         cand = opb + acc_g
@@ -153,18 +146,16 @@ def _merge_dense(accM: jnp.ndarray, opM: jnp.ndarray, q: int, axis: int,
     return out
 
 
-def _merge_scan(accM: jnp.ndarray, vals, idxs, q: int, axis: int,
-                xor_take=_xor_take):
+def _merge_scan(accM: jnp.ndarray, vals, idxs, q: int, axis: int):
     """out[a] = max_t vals[t] + accM[a ^ idxs[t]] over the nm list entries."""
     out = None
     for v, i in zip(vals, idxs):
-        cand = v + _xor_perm_dyn(accM, i, q, axis, xor_take)
+        cand = v + _xor_perm_dyn(accM, i, q, axis)
         out = cand if out is None else jnp.maximum(out, cand)
     return out
 
 
-def _cn_ems_core(Ujs: list, nm: int, q: int, axis: int,
-                 xor_take=_xor_take) -> list:
+def _cn_ems_core(Ujs: list, nm: int, q: int, axis: int) -> list:
     """Classic truncated forward/backward EMS over one check's dc operands.
 
     Ujs: dc arrays [..., q at `axis`, ...], log-domain x-domain, normalized,
@@ -178,14 +169,13 @@ def _cn_ems_core(Ujs: list, nm: int, q: int, axis: int,
     # contributes its COMPENSATED dense form (tail = smallest kept value),
     # the scanned operand only its kept list entries.
     if not trunc:
-        merge = lambda acc, op: _merge_dense(acc[1], op[0], q, axis, xor_take)
+        merge = lambda acc, op: _merge_dense(acc[1], op[0], q, axis)
         extract = lambda x: (x, x, None, None)
     elif q <= DENSE_MERGE_MAX_Q:
-        merge = lambda acc, op: _merge_dense(acc[1], op[0], q, axis, xor_take)
+        merge = lambda acc, op: _merge_dense(acc[1], op[0], q, axis)
         extract = lambda x: _top_extract(x, nm, q, axis)
     else:
-        merge = lambda acc, op: _merge_scan(acc[1], op[2], op[3], q, axis,
-                                            xor_take)
+        merge = lambda acc, op: _merge_scan(acc[1], op[2], op[3], q, axis)
         extract = lambda x: _top_extract(x, nm, q, axis)
 
     quads = [extract(u) for u in Ujs]
@@ -217,27 +207,29 @@ def _cn_ems_core(Ujs: list, nm: int, q: int, axis: int,
 
 
 # ---------------------------------------------------------------------------
-# Bubble EMS (round 5): list-based merges for large q.
+# Bubble EMS: list-based merges for large q.
 #
 # The classic q>64 path above scans nm list entries against a DENSE
 # compensated operand, paying nm * p conditional static permutes of a dense
-# [.., q, ..] tensor per merge (~200 dense passes at GF(256) nm=16) — the
-# measured reason GF(256) EMS sat at 4.3e5 sym/s for two rounds. Bubble EMS
-# (Boutillon & Conde-Canencia's bubble-check idea, adapted to static TPU
+# [.., q, ..] tensor per merge (~200 dense passes at GF(256) nm=16). Bubble
+# EMS (Boutillon & Conde-Canencia's bubble-check idea, adapted to static
 # shapes) merges two SORTED nm-lists directly: for sorted descending
 # operands, every candidate pair (t, s) with (t+1)*(s+1) > nm is dominated
 # by more than nm larger pairs and can never reach the top-nm, so the
-# merge enumerates only the STATIC staircase set (|S| = 50 for nm = 16)
-# and extracts its top-nm — all ops on [.., 50, ..] tensors instead of
+# merge enumerates only a STATIC staircase set (bubble_pairs: |S| = 103
+# for nm = 16 at budget 2) plus min(2nm, q) floor-valued fill candidates,
+# and extracts its top-nm — all ops on [.., 135, ..] tensors instead of
 # [.., q, ..]. Lists convert to dense only at the CN boundary (scatter with
 # compensation fill), keeping the VN/posterior machinery unchanged.
 #
-# SEMANTICS DIFFER from the classic compensated-dense scheme (tail
-# configurations are dropped rather than floor-compensated inside merges),
-# so this is a separate decoder variant with its own co-designed numpy
-# oracle (tests/reference_model.py kind="ems_bubble") and its own FER
-# validation (benchmarks/results/bubble_fer_*.json) — the classic paths
-# and their golden tests are untouched. Deterministic tie-breaks: input
+# SEMANTICS DIFFER from the classic compensated-dense scheme (pairs outside
+# the staircase are dropped; the tail is filled with fresh indices at the
+# compensation floor, see _merge_bubble), so this is a separate decoder
+# variant with its own co-designed numpy oracle
+# (tests/reference_model.py kind="ems_bubble") and its own FER
+# validation (GF(256) nm=16: FER 1.26x classic at 3.0 dB, PERF.md) — the
+# classic paths and their golden tests are untouched. Deterministic
+# tie-breaks: input
 # extraction ties -> lower GF index; candidate extraction ties -> first in
 # the lexicographic (t, s) enumeration; duplicate-index scatter -> the
 # larger value wins.
@@ -250,19 +242,18 @@ def bubble_pairs(nm: int, budget: int = 2):
     A budget of nm (budget=1, |S| = 50 for nm = 16) suffices for the
     top-nm BY VALUE of sorted operands, but the index-DEDUP in
     _merge_bubble reaches deeper than nm raw candidates when top values
-    collide on GF indices. Measured round 5 (GF(256) (255,175) nm=16,
-    10 it, fresh-fill merges, device): budget=1 runs 1.16e6 sym/s but
-    FER 1.21e-2 at 3.0 dB vs budget=2's 8.9e5 sym/s at 7.3e-3 (classic
-    6.0e-3) — staircase depth carries real coding gain even with the
-    fresh-fill tail fix, so budget=2 stays the default."""
+    collide on GF indices. FER finding (GF(256) (255,175) nm=16, 10 it,
+    fresh-fill merges, 3.0 dB): budget=1 reaches 1.21e-2 against
+    budget=2's 7.46e-3 (classic 5.93e-3) — staircase depth carries real
+    coding gain even with the fresh-fill tail fix, so budget=2 stays the
+    default."""
     return [(t, s) for t in range(nm) for s in range(nm)
             if (t + 1) * (s + 1) <= budget * nm]
 
 
 def _take_static(x: jnp.ndarray, T, axis: int) -> jnp.ndarray:
-    """Gather STATIC indices T along `axis` as a concat of unit slices —
-    the Mosaic-safe form the Pallas bubble kernel needs (no gathers);
-    XLA folds it into the consumer just as well as jnp.take."""
+    """Gather STATIC indices T along `axis` as a concat of unit slices;
+    XLA folds it into the consumer."""
     ax = axis % x.ndim
     return jnp.concatenate(
         [jax.lax.index_in_dim(x, int(t), ax, keepdims=True) for t in T],
@@ -273,9 +264,8 @@ def _top_list(x: jnp.ndarray, nm: int, q: int, axis: int):
     """Top-nm (vals, idxs) of dense x along `axis`, descending, ties ->
     lower GF index (stable-sort order). vals/idxs have nm at `axis`.
 
-    Unrolled masked-iota max/argmax/remove steps. A lax.top_k + gather
-    form was measured 5x SLOWER on TPU (TopK lowers to a sort and the
-    index gather is per-element): loops of dense reduces beat sorts here.
+    Unrolled masked-iota max/argmax/remove steps (a lax.top_k + gather
+    form is the alternative; it has not been timed on the GPU).
     """
     iota = _iota(q, x.ndim, axis)
     run = x
@@ -418,7 +408,7 @@ def _cn_ems_bubble_core(Ujs: list, nm: int, q: int, axis: int,
     If `stacked` is given (the dense operands still carrying their dc axis
     at `dc_axis`), the input extraction runs ONCE batched over dc instead
     of per slot — identical per-element semantics, ~dc x fewer ops (the
-    extraction loop is the measured hot spot of the fused kernel)."""
+    extraction loop dominates the bubble CN update)."""
     dc = len(Ujs)
     assert dc >= 2
     pairs = bubble_pairs(nm)
@@ -486,7 +476,7 @@ def ems_cn_update_bl(
     """Batch-last CN update: U [M, dc_max, q, B] log-domain x-domain.
 
     Identical math to ems_cn_update with q on axis 2 and the Monte-Carlo
-    batch on the TPU lane axis. Pad CN slots arrive as log-delta0 — exactly
+    batch last. Pad CN slots arrive as log-delta0 — exactly
     the merge identity — from graph.gather_cn_x_bl, so no masking is needed
     (pad OUTPUT slots are never routed by the VN gather).
 
@@ -512,55 +502,17 @@ def decode(
     offset: float = 0.0,
     early_term: bool = True,
     batch_last: bool = True,
-    use_pallas: str = "auto",
     stats_each_iter: bool = True,
     merge: str = "classic",
 ) -> common.DecodeResult:
     """EMS decode of a batch: llr [B, N, q] -> DecodeResult.
 
-    batch_last=True uses the TPU-fast lane layout; use_pallas selects the
-    fused K2 check-node kernel ("auto" = on TPU only). merge="bubble"
-    selects the list-based large-q CN variant (batch-last XLA only)."""
+    batch_last=True runs the [.., q, B] layout of common.decode_bl;
+    merge="bubble" selects the list-based large-q CN variant (batch-last
+    only)."""
     if batch_last:
-        from nbldpc_tpu.decoders.qspa import _on_tpu, _resident_tile
-
-        if merge == "bubble":
-            if use_pallas == "auto":
-                use_pallas = "yes" if _on_tpu() else "no"
-            if use_pallas == "yes":
-                from nbldpc_tpu.kernels.cn_ems import (
-                    ems_cn_update_bl_bubble_pallas,
-                )
-
-                cn = functools.partial(ems_cn_update_bl_bubble_pallas,
-                                       nm=nm, offset=offset)
-            else:
-                cn = functools.partial(ems_cn_update_bl, nm=nm,
-                                       offset=offset, merge="bubble")
-            return common.decode_bl(graph, llr, cn, max_iters, early_term,
-                                    stats_each_iter=stats_each_iter)
-        if use_pallas == "auto":
-            use_pallas = "yes" if _on_tpu() else "no"
-        if use_pallas == "yes":
-            # whole-decode resident kernel (K0-EMS) when it applies: q <= 32
-            # (untruncated AND, since round 5, classic-truncated nm < q) on
-            # a frames-on-lanes-capable batch.
-            layout, tb = _resident_tile(llr.shape[0], graph)
-            if graph.q <= 32 and layout == "fl":
-                from nbldpc_tpu.kernels.ems_resident import get_resident_ems
-
-                dec = get_resident_ems(graph, max_iters, nm, offset,
-                                       early_term,
-                                       stats_each_iter=stats_each_iter)
-                hard, done, iters = dec(llr, tb=tb)
-                return common.DecodeResult(hard=hard, done=done, iters=iters)
-            from nbldpc_tpu.kernels.cn_ems import ems_cn_update_bl_pallas
-
-            cn = functools.partial(
-                ems_cn_update_bl_pallas, nm=nm, offset=offset
-            )
-        else:
-            cn = functools.partial(ems_cn_update_bl, nm=nm, offset=offset)
+        cn = functools.partial(ems_cn_update_bl, nm=nm, offset=offset,
+                               merge=merge)
         return common.decode_bl(graph, llr, cn, max_iters, early_term,
                                 stats_each_iter=stats_each_iter)
     cn = functools.partial(ems_cn_update, nm=nm, offset=offset)

@@ -14,13 +14,11 @@ done in sign/log-magnitude form: per-edge WHT spectra F satisfy |F| <= 1
 exp(sum log|F| - log|F_e|) with an XOR-style sign product. Messages stay
 log-domain between phases; each phase renormalizes.
 
-The pure-XLA path below is the semantic reference; kernels/cn_qspa.py holds
-the fused Pallas kernel (K1) with identical semantics.
+The XLA path below is the semantic reference; kernels/cn_qspa.py holds the
+fused GPU kernel with the same semantics.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +37,7 @@ def qspa_cn_update(U: jnp.ndarray, graph: TannerGraph) -> jnp.ndarray:
     """Check-node update, x-domain in and out: [B, M, dc_max, q] log-domain.
 
     The GF weight permutations live in the routing gathers (graph.gather_*_x),
-    so this update is pure elementwise/WHT/reduction — no gathers (K1 spec).
+    so this update is pure elementwise/WHT/reduction — no gathers.
     """
     q = graph.q
     P = jax.nn.softmax(U, axis=-1)                  # prob domain, sums to 1
@@ -64,13 +62,12 @@ def qspa_cn_update(U: jnp.ndarray, graph: TannerGraph) -> jnp.ndarray:
 def qspa_cn_update_bl(U: jnp.ndarray, graph: TannerGraph) -> jnp.ndarray:
     """Batch-last CN update: U [M, dc_max, q, B] log-domain x-domain.
 
-    q on axis 2, frame batch on the TPU lane axis (axis 3) — every op runs
-    on full 128-lane vectors.
+    q on axis 2, frame batch last (axis 3).
     Identical math to qspa_cn_update — but maskless: pad CN slots arrive as
     log-delta0 (graph.gather_cn_x_bl), whose spectrum is all-ones and
     contributes exactly 0 to the leave-one-out log-sum, and pad OUTPUT values
     are never read (the VN gather routes only real slots). Pure
-    elementwise + WHT + dc-reduction — the Pallas K1 contract.
+    elementwise + WHT + dc-reduction — the contract of kernels/cn_qspa.py.
     """
     q = graph.q
     P = jax.nn.softmax(U, axis=2)
@@ -86,64 +83,16 @@ def qspa_cn_update_bl(U: jnp.ndarray, graph: TannerGraph) -> jnp.ndarray:
     return Chat - jnp.max(Chat, axis=2, keepdims=True)
 
 
-def qspa_cn_update_bl_pallas(U: jnp.ndarray, graph: TannerGraph) -> jnp.ndarray:
-    """Fused Pallas K1 kernel path — same semantics as qspa_cn_update_bl."""
-    from nbldpc_tpu.kernels.cn_qspa import cn_update_pallas
+def cn_update_bl_for(graph: TannerGraph, batch: int):
+    """The batch-last CN update for the default backend: the fused Pallas
+    kernel (kernels/cn_qspa.py) on a GPU when it handles GF(q) and a frame
+    tile divides the batch, the XLA update everywhere else."""
+    from nbldpc_tpu.kernels import cn_qspa
 
-    return cn_update_pallas(U)
-
-
-def _on_tpu() -> bool:
-    import jax.extend.backend
-
-    return jax.extend.backend.get_backend().platform == "tpu"
-
-
-def _resident_tile(batch: int, graph: TannerGraph | None = None) -> tuple:
-    """(layout, tile) for the resident kernel, or ("", 0) if none fits.
-
-    q <= 32 (or no graph given): prefers the round-4 frames-on-lanes layout
-    (tile = multiple of 128 on the lane axis — measured ~10% faster at
-    GF(16) and ~15% at GF(4) than the checks-on-lanes layout, with zero
-    lane padding); falls back to checks-on-lanes with a sublane tile for
-    smaller batches.
-
-    q > 32 (round-5 extension): the frames-on-lanes layout would need
-    q*128 lanes per row, so large fields always use checks-on-lanes, with
-    the frame tile capped by a VMEM model (~7 live [q, dc, TB, Mpad] f32
-    tensors within a 90 MB budget of the chip's >= 120 MB physical VMEM)."""
-    if graph is not None and graph.q > 32:
-        m_pad = -(-graph.m // 128) * 128                  # lane padding
-        per_tb = 7 * graph.q * graph.dc_max * m_pad * 4
-        cap = max(8, (90 * 1024 * 1024 // per_tb) // 8 * 8)
-        for t in range(min(batch, cap), 7, -1):
-            if batch % t == 0 and t % 8 == 0:
-                return "cl", t
-        return "", 0
-    if batch % 128 == 0:
-        # tb=128 stays the tile: wider tiles (256/512) measured 8-9%
-        # faster PAIR-timed at the flagship config but NEUTRAL on the
-        # honest chained-slope headline and 8% SLOWER for the resident
-        # EMS core (round-5 experiment; /tmp-era logs summarized in
-        # ROOFLINE.md) — the pair-time gain was dispatch-side, which the
-        # slope cancels anyway.
-        return "fl", 128
-    for t in range(min(batch, 64), 7, -1):
-        if batch % t == 0 and t % 8 == 0:
-            return "cl", t
-    return "", 0
-
-
-def _pick_impl(impl: str, graph: TannerGraph, batch: int) -> str:
-    """Resolve "auto": resident kernel when it applies, else Pallas K1 on
-    TPU, else pure XLA."""
-    if impl != "auto":
-        return impl
-    if not _on_tpu():
-        return "xla"
-    if _resident_tile(batch, graph)[1]:
-        return "resident"
-    return "pallas"
+    if (jax.default_backend() == "gpu" and cn_qspa.supports(graph.q)
+            and cn_qspa.frame_tile(graph.q, batch)):
+        return lambda U, _graph: cn_qspa.cn_update(U)
+    return qspa_cn_update_bl
 
 
 def decode(
@@ -152,41 +101,16 @@ def decode(
     max_iters: int = 20,
     early_term: bool = True,
     batch_last: bool = True,
-    cn_impl: str = "auto",
-    mm_precision: str = "f32",
     stats_each_iter: bool = True,
 ) -> common.DecodeResult:
     """QSPA decode of a batch: llr [B, N, q] -> DecodeResult.
 
-    batch_last=True uses the TPU-fast layout (lane axis = frame batch);
-    all paths implement the same BP update equations. cn_impl selects the
-    implementation:
-      "resident" — Pallas K0: the entire multi-iteration decode runs in one
-                   VMEM-resident kernel (TPU, q <= 32; fastest by far);
-      "pallas"   — Pallas K1 fused check-node kernel inside the XLA loop;
-      "xla"      — pure-XLA batch-last path (CPU-runnable, semantic ref);
-      "auto"     — resident when applicable, else pallas on TPU, else xla.
-    The resident path runs probability-domain BP (scale-invariant, same
-    fixed point); hard decisions can differ from the log-domain paths in
-    rare fp-tie cases.
+    batch_last=True runs the [.., q, B] layout of common.decode_bl with the
+    backend's CN update (cn_update_bl_for); batch_last=False runs the
+    q-last reference loop. Both implement the same BP update equations.
     """
     if batch_last:
-        impl = _pick_impl(cn_impl, graph, llr.shape[0])
-        layout, tb = _resident_tile(llr.shape[0], graph)
-        if impl == "resident" and not tb:
-            # explicitly-requested resident kernel but no tile divides the
-            # batch (e.g. a prime batch size) — fall through to K1/XLA
-            impl = "pallas" if _on_tpu() else "xla"
-        if impl == "resident":
-            from nbldpc_tpu.kernels.qspa_resident import get_resident_decoder
-
-            mmdt = jnp.bfloat16 if mm_precision == "bf16" else jnp.float32
-            dec = get_resident_decoder(graph, max_iters, early_term,
-                                       stats_each_iter=stats_each_iter,
-                                       mm_dtype=mmdt, layout=layout)
-            hard, done, iters = dec(llr, tb=tb)
-            return common.DecodeResult(hard=hard, done=done, iters=iters)
-        cn = qspa_cn_update_bl_pallas if impl == "pallas" else qspa_cn_update_bl
+        cn = cn_update_bl_for(graph, llr.shape[0])
         return common.decode_bl(graph, llr, cn, max_iters, early_term,
                                 stats_each_iter=stats_each_iter)
     return common.decode(graph, llr, qspa_cn_update, max_iters, early_term)

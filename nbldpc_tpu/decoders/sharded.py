@@ -11,8 +11,8 @@ exactly the Ulysses-style resharding the survey prefers for small dv.
 
 Implementation: the standard batch-last loop annotated with
 `with_sharding_constraint` at the layout switch points; the compiler
-chooses collective schedules (this is the idiomatic TPU expression —
-explicit ppermute halo exchange would fight GSPMD, not help it).
+chooses collective schedules (explicit ppermute halo exchange would fight
+GSPMD, not help it).
 
 Same update equations as decoders/common.py::decode_bl — tests pin
 hard/done/iters equality against the unsharded path on a virtual mesh.

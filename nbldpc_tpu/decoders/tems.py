@@ -15,8 +15,7 @@ collisions are fixed by substituting the second-best side (the standard
 hardware-friendly approximation — identical in the numpy oracle, so golden
 tests are exact).
 
-TPU-native formulation (round 3 — replaces the round-2 per-column loops):
-everything is batched over the dc axis and dense over q — no trellis
+Formulation: everything is batched over the dc axis and dense over q — no trellis
 pointers, no sorts, no gathers, no data-dependent loop bodies:
   - the delta transform and the final output rotation are data-dependent XOR
     permutes done batched over dc (p conditional STATIC permutes each,
@@ -27,13 +26,11 @@ pointers, no sorts, no gathers, no data-dependent loop bodies:
     each step advances the three shifted operands (m1x, m2x, c1x at
     [eta ^ e1]) by ONE single-bit static XOR permute and adds the row-e1
     scalars (static q-axis slices) — ~7 full-tensor VPU passes per step,
-    O(q) steps, O(q) compile. The round-2 version ran a fori_loop whose body
-    did three O(p)-stage data-dependent permutes PER COLUMN (dc x q steps x
-    ~45 passes) — the judged 329 s sim-step compile and 6.3e4 sym/s both
-    trace to it.
+    O(q) steps, O(q) compile. (A fori_loop with three O(p)-stage
+    data-dependent permutes per column costs dc x q steps x ~45 passes and
+    compiled for minutes.)
 Both the q-last [B, M, dc, q] and batch-last [M, dc, q, B] layouts share the
-same stacked core, parameterized by the XOR-permute hook so the fused Pallas
-kernel (kernels/cn_tems.py) reuses it with roll-based permutes.
+same stacked core.
 """
 
 from __future__ import annotations
@@ -50,8 +47,7 @@ from nbldpc_tpu.graph import TannerGraph
 NEG = -1e30
 
 
-def _two_deviation_dense(m1x, c1x, m2x, q: int, axis: int,
-                         xor_take=_xor_take):
+def _two_deviation_dense(m1x, c1x, m2x, q: int, axis: int):
     """dw(eta) = max over e1 ^ e2 = eta (e1, e2 != 0) of the two-deviation
     sum, with the equal-column collision fix.
 
@@ -62,8 +58,7 @@ def _two_deviation_dense(m1x, c1x, m2x, q: int, axis: int,
     dw = jnp.full_like(m1x, NEG)
     # The three shifted operands advance by the SAME single-bit permute
     # every Gray step — stack them on a new leading axis so each step is
-    # ONE xor_take materialization instead of three (leading-axis stacking
-    # and slicing are free on TPU).
+    # ONE permute instead of three.
     S = jnp.stack([m1x, m2x, c1x])
     saxis = axis % m1x.ndim + 1
     p = q.bit_length() - 1
@@ -72,7 +67,7 @@ def _two_deviation_dense(m1x, c1x, m2x, q: int, axis: int,
         # bit-reversed reflected Gray walk: single-bit steps, flipping the
         # HIGHEST (cheapest-to-permute) bit most often — see ems._merge_dense
         e1 = _bitrev(g ^ (g >> 1), p)                      # != 0
-        S = xor_take(S, e1 ^ prev, q, saxis)
+        S = _xor_take(S, e1 ^ prev, q, saxis)
         prev = e1
         mp, sp, cp = S[0], S[1], S[2]
         v1 = jax.lax.index_in_dim(m1x, e1, axis, keepdims=True)
@@ -84,9 +79,8 @@ def _two_deviation_dense(m1x, c1x, m2x, q: int, axis: int,
     return dw
 
 
-def _two_deviation_bubble(m1x, c1x, m2x, q: int, axis: int, n_r: int,
-                          xor_take=_xor_take):
-    """TRUNCATED two-deviation search (round 5 — VERDICT item 3): the
+def _two_deviation_bubble(m1x, c1x, m2x, q: int, axis: int, n_r: int):
+    """TRUNCATED two-deviation search: the
     FIRST deviation e1 is restricted to the n_r most reliable rows
     (ranked by the column-excluded one-deviation metric m1x, ties ->
     lower row index) while e2 = eta ^ e1 stays FREE — the classic
@@ -98,12 +92,10 @@ def _two_deviation_bubble(m1x, c1x, m2x, q: int, axis: int, n_r: int,
     (A cheaper both-endpoints-in-top-n_r pair enumeration was built and
     FER-validated first: it collapsed on the (576,480) code — FER 0.94
     at 4 dB where the exact scan reaches 0.0 — and was replaced by this
-    scheme. fer_curves_r5 records the validation.)
+    scheme.)
 
-    Per kept row: one data-dependent XOR permute of the stacked
-    (m1x, m2x, c1x) operands (p conditional static permutes — the same
-    xor_take hook as the dense scan, so the K5 Pallas kernel runs it
-    unchanged); the candidate row values come from the shifted stack's
+    Per kept row: one data-dependent XOR permute (p conditional static
+    permutes); the candidate row values come from the shifted stack's
     row 0 (S[eta ^ e1] at eta = 0 IS S[e1] — static slices only). The
     one-deviation term stays EXACT (dense m1x). Co-designed numpy
     oracle: tests/reference_model.py kind="tems" with n_r."""
@@ -132,14 +124,12 @@ def _two_deviation_bubble(m1x, c1x, m2x, q: int, axis: int, n_r: int,
         # every operand is unshifted, so only the finished candidate row
         # needs the data-dependent XOR permute — one tensor through
         # p conditional permutes per kept row instead of the stacked
-        # (m1x, m2x, c1x) triple (3x less permute traffic; measured: the
-        # triple-shift form was only 5% faster than the exact Gray scan).
+        # (m1x, m2x, c1x) triple (3x less permute traffic).
         cand = jnp.where(cs[t] == c1x,
                          jnp.maximum(v1s[t] + m2x, v2s[t] + m1x),
                          v1s[t] + m1x)
         cand = jnp.where(iota == 0, NEG, cand)         # e2 = 0 forbidden
-        dw = jnp.maximum(dw, _xor_perm_dyn(cand, idxs[t], q, axis,
-                                           xor_take))
+        dw = jnp.maximum(dw, _xor_perm_dyn(cand, idxs[t], q, axis))
     return dw
 
 
@@ -168,7 +158,7 @@ def _top3_stacked(dU, dc_axis: int):
 
 
 def _cn_tems_core(U, q: int, dc_axis: int, q_axis: int,
-                  xor_take=_xor_take, n_r: int = 0) -> jnp.ndarray:
+                  n_r: int = 0) -> jnp.ndarray:
     """Stacked T-EMS check-node core, batched over the dc axis.
 
     U: [..., dc at dc_axis, ..., q at q_axis, ...], log-domain x-domain,
@@ -182,7 +172,7 @@ def _cn_tems_core(U, q: int, dc_axis: int, q_axis: int,
 
     # delta domain relative to the most reliable symbol per edge (batched)
     z = jnp.argmax(U, axis=q_axis, keepdims=True).astype(jnp.int32)
-    dU = _xor_perm_dyn(U, z, q, q_axis, xor_take)
+    dU = _xor_perm_dyn(U, z, q, q_axis)
     beta = functools.reduce(
         jnp.bitwise_xor,
         [jax.lax.index_in_dim(z, j, dc_axis, keepdims=True)
@@ -200,13 +190,13 @@ def _cn_tems_core(U, q: int, dc_axis: int, q_axis: int,
     m2x = jnp.where(is_j0 | is_j1, m3, m2)
 
     if n_r:
-        dw = _two_deviation_bubble(m1x, c1x, m2x, q, q_axis, n_r, xor_take)
+        dw = _two_deviation_bubble(m1x, c1x, m2x, q, q_axis, n_r)
     else:
-        dw = _two_deviation_dense(m1x, c1x, m2x, q, q_axis, xor_take)
+        dw = _two_deviation_dense(m1x, c1x, m2x, q, q_axis)
         dw = jnp.maximum(dw, m1x)                           # one deviation
     dw = jnp.where(iota_q == 0, 0.0, dw)                    # zero deviations
     # back to the normal domain: C_j(a) = dW(a ^ beta ^ z_j)
-    return _xor_perm_dyn(dw, beta ^ z, q, q_axis, xor_take)
+    return _xor_perm_dyn(dw, beta ^ z, q, q_axis)
 
 
 def tems_cn_update(U: jnp.ndarray, graph: TannerGraph, offset: float = 0.0,
@@ -244,28 +234,16 @@ def decode(
     offset: float = 0.0,
     early_term: bool = True,
     batch_last: bool = True,
-    use_pallas: str = "auto",
     stats_each_iter: bool = True,
     n_r: int = 0,
 ) -> common.DecodeResult:
     """T-EMS decode of a batch: llr [B, N, q] -> DecodeResult.
 
-    use_pallas selects the fused check-node kernel ("auto" = on TPU only);
     stats_each_iter=False is the fixed-budget throughput mode (see
     common.decode_bl). n_r > 0 truncates the two-deviation search to the
     n_r most reliable rows (own oracle semantics + FER validation)."""
     if batch_last:
-        from nbldpc_tpu.decoders.qspa import _on_tpu
-
-        if use_pallas == "auto":
-            use_pallas = "yes" if _on_tpu() else "no"
-        if use_pallas == "yes":
-            from nbldpc_tpu.kernels.cn_tems import tems_cn_update_bl_pallas
-
-            cn = functools.partial(tems_cn_update_bl_pallas, offset=offset,
-                                   n_r=n_r)
-        else:
-            cn = functools.partial(tems_cn_update_bl, offset=offset, n_r=n_r)
+        cn = functools.partial(tems_cn_update_bl, offset=offset, n_r=n_r)
         return common.decode_bl(graph, llr, cn, max_iters, early_term,
                                 stats_each_iter=stats_each_iter)
     cn = functools.partial(tems_cn_update, offset=offset, n_r=n_r)

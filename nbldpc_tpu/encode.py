@@ -1,6 +1,6 @@
 """Systematic encoder over GF(q).
 
-TPU-native design (SURVEY.md §2.1 C4): Gaussian elimination runs ONCE on host
+Design (SURVEY.md §2.1 C4): Gaussian elimination runs ONCE on host
 (numpy over the GF tables — a Python stand-in is idiomatic for one-time
 setup); the per-frame encode is a device computation of
     parity[j] = XOR_k mul[info[k], P[k, j]]

@@ -1,6 +1,6 @@
 """GF(2^p) arithmetic as precomputed tables.
 
-TPU-native design (SURVEY.md §2.1 C1): on device, field math never executes —
+Design (SURVEY.md §2.1 C1): on device, field math never executes —
 all GF(q) multiplication/division in the decode loop is precompiled into
 int32 *permutation tables* that become XLA gathers. This module builds the
 tables once on host (numpy) and exposes them as jnp arrays.

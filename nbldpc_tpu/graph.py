@@ -1,6 +1,6 @@
 """Tanner graph as dense padded index arrays for XLA gather/scatter decoding.
 
-TPU-native design (SURVEY.md §2.1 C3, §2.2 K4): instead of the C++
+Design (SURVEY.md §2.1 C3, §2.2 K4): instead of the C++
 reference's per-node pointer/edge lists, the graph is compiled into dense
 [M, dc_max] / [N, dv_max] index matrices (padded + masked for irregular
 codes) so every check-node and variable-node phase is a reshape + gather —
@@ -195,11 +195,10 @@ class TannerGraph:
             out = jnp.where(self.vn_mask[None, :, :, None], out, 0.0)
         return out
 
-    # ---- batch-last routing (fast TPU layout: lane axis = frame batch) ----
+    # ---- batch-last routing (the simulator's layout: frame batch last) ----
     #
-    # Messages are [M, dc_max, q, B] / [N, dv_max, q, B]: every VPU op runs on
-    # full 128-lane vectors over the Monte-Carlo batch, and routing gathers
-    # move contiguous length-B rows (memory-coalesced on TPU).
+    # Messages are [M, dc_max, q, B] / [N, dv_max, q, B]: routing gathers
+    # move contiguous length-B rows of the Monte-Carlo batch.
 
     def gather_vn_x_bl(self, Chat: jnp.ndarray) -> jnp.ndarray:
         """[M, dc_max, q, B] x-domain -> [N, dv_max, q, B] c-domain.
@@ -238,7 +237,7 @@ class TannerGraph:
         h*c = XOR_t ((c >> t) & 1) * mul[h, 2^t] — the per-edge tables
         syn_k [M, dc, p] are precomputed (0 on pad slots), so the whole
         syndrome is shifts/ands/multiplies + an XOR reduce: no per-element
-        table gathers (which are slow on TPU)."""
+        table gathers."""
         sym = jnp.take(hard, self.cn_vn.reshape(-1), axis=0).reshape(
             self.m, self.dc_max, -1
         )

@@ -1,1 +1,2 @@
-"""Device kernels: pure-XLA reference paths + Pallas TPU kernels for hot ops."""
+"""Device kernels: the WHT used by the XLA path, and the fused GPU QSPA
+check-node update (cn_qspa)."""

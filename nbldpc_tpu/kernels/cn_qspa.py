@@ -1,18 +1,31 @@
-"""Pallas K1: fused QSPA check-node update (SURVEY.md §2.2 K1).
+"""Fused QSPA check-node update for NVIDIA GPUs (Pallas, Triton route).
 
-Replaces the reference genre's C++ CN hot loop with ONE fused TPU kernel:
-softmax -> WHT -> leave-one-out sign/log-magnitude product over dc ->
-inverse WHT -> floor -> log -> renormalize, all in VMEM. One HBM read and
-one HBM write per message per iteration — the speed-of-light contract.
+Same function as decoders/qspa.py::qspa_cn_update_bl — softmax over q ->
+WHT -> leave-one-out sign/log-magnitude product over the check's dc slots ->
+inverse WHT -> floor -> log -> renormalize — in ONE kernel, so each
+iteration reads the message tensor U once and writes Chat once instead of
+round-tripping intermediates through HBM between XLA's reductions.
 
-Layout: batch-last [M, dc, q, B] (q on sublanes, frame batch on lanes).
-Maskless: pad slots arrive as log-delta0 (see graph.gather_cn_x_bl), whose
-spectrum contributes exactly 0 to the leave-one-out sum.
+Layout: batch-last U [M, dc, q, B] (graph.gather_cn_x_bl). Pad CN slots
+arrive as log-delta0, whose spectrum is all-ones and contributes exactly 0
+to the leave-one-out log-sum, so the kernel is maskless.
 
-The WHT butterfly is expressed with `pltpu.roll` over the q (sublane) axis —
-no reshapes of the minor dims, which Mosaic lowers poorly. Identity used:
-for stage h, x[a ^ h] == roll(x, -h)[a] when bit_h(a)=0 and roll(x, +h)[a]
-when bit_h(a)=1 (xor with h never carries across the 2h block).
+One program per (check, frame tile of TB frames; frame_tile). Each dc slot is a
+[q, TB] tile with the frames contiguous (coalesced loads). The program
+makes two passes over its slots: the first accumulates the leave-one-out
+log-sum and sign product, the second recomputes each slot's spectrum from
+U (an L2 hit) instead of holding dc spectra in registers, which would
+spill at large q.
+
+The WHT is a dot with the [r, r] Hadamard matrix: for q = r it is one
+[r, r] x [r, TB] product; for q = r*r (GF(256), r = 16) it is the
+Kronecker form H_q = H_r (x) H_r — a product over the high index, a
+transpose, a product over the low index. The spectrum then comes out with
+its two index halves swapped; every spectral-domain step is elementwise or
+a reduction over dc, and the inverse transform undoes the swap, so the
+result is in natural order. The dots run at Precision.HIGHEST (IEEE f32):
+a TF32 Hadamard product loses the spectra's low bits, and reduced-precision
+spectra cost FER (see PERF.md).
 """
 
 from __future__ import annotations
@@ -22,138 +35,102 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-# Must match decoders/qspa.py so the Pallas and XLA paths agree bitwise-ish.
+from nbldpc_tpu.kernels.wht import wht_matrix
+
+# Must match decoders/qspa.py so the kernel and the XLA path agree.
 PROB_FLOOR = 1e-12
 MAG_TINY = 1e-30
 
-
-def _wht_roll(x: jnp.ndarray, q: int, axis: int = 2) -> jnp.ndarray:
-    """Unnormalized WHT along `axis` using XOR permutes (Mosaic-friendly).
-
-    Per stage h: out[a] = x[a ^ h] + sign_h(a) * x[a] with sign_h(a) = -1
-    where bit_h(a) = 1 — ONE xor-permute (concat of block slices for the
-    high stages, roll+select for the low ones — kernels/cn_ems.py) plus one
-    fused multiply-add, instead of the two selects of the round-2 form."""
-    from nbldpc_tpu.kernels.cn_ems import _xor_take_auto
-
-    p = q.bit_length() - 1
-    shape = [1] * x.ndim
-    shape[axis] = q
-    a_idx = jax.lax.broadcasted_iota(jnp.int32, tuple(shape), axis)
-    for i in range(p):
-        h = 1 << i
-        sign = jnp.where((a_idx & h) != 0, -1.0, 1.0).astype(x.dtype)
-        x = _xor_take_auto(x, h, q, axis) + x * sign
-    return x
+# Hadamard factor r for each supported q: one dot (q = r) or the Kronecker
+# pair (q = r*r). Triton's dot needs every dimension >= 16, so GF(4)/GF(8)
+# stay on the XLA update.
+_WHT_FACTOR = {16: 16, 32: 32, 64: 64, 256: 16}
 
 
-def _cn_kernel(u_ref, *rest, q: int, wht: str = "roll"):
-    if wht == "mxu":
-        h_ref, out_ref = rest
-    else:
-        (out_ref,) = rest
-    U = u_ref[...]                                   # [TM, dc, q, TB]
-    TM, dc, _, TB = U.shape
-
-    if wht == "mxu":
-        # WHT as a row-batched [q, q] (x) [q, TB] contraction on the MXU —
-        # the sublane q axis is the natural matmul contraction dim and the
-        # batch form preserves [R, q, TB] layout with no fix-ups.
-        # MEASURED DEAD END (round 4, GF(256)): at the MXU's default f32
-        # emulation this runs 2.06 -> 1.74 ms/iter but leaves bf16-grade
-        # absolute error on the spectra (0.15 max in the log outputs, 19%
-        # of elements off — the exact failure mode that cost FER in the
-        # round-3 bf16 experiments); at Precision.HIGHEST it is accurate
-        # (1.6e-4 max) but 2.10 ms/iter — no faster than the rolls. The
-        # flag stays for the record; "auto" resolves to rolls.
-        Hrep = h_ref[...]                            # [TM*dc, q, q]
-
-        def wht_f(X):
-            X3 = X.reshape(TM * dc, q, TB)
-            out = jax.lax.dot_general(
-                Hrep, X3, (((2,), (1,)), ((0,), (0,))),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=jnp.float32)
-            return out.reshape(TM, dc, q, TB)
-    else:
-        wht_f = lambda X: _wht_roll(X, q)
-
-    mx = jnp.max(U, axis=2, keepdims=True)
-    e = jnp.exp(U - mx)
-    P = e / jnp.sum(e, axis=2, keepdims=True)        # softmax over q
-    F = wht_f(P)                                     # spectra, |F| <= 1
-    sign = jnp.where(F < 0, -1.0, 1.0).astype(P.dtype)
-    logmag = jnp.log(jnp.abs(F) + MAG_TINY)
-    lsum = jnp.sum(logmag, axis=1, keepdims=True)    # over dc
-    # reduce_prod has no Mosaic lowering; dc is small — unroll the product
-    ssum = sign[:, 0:1]
-    for j in range(1, dc):
-        ssum = ssum * sign[:, j : j + 1]
-    G = (ssum * sign) * jnp.exp(lsum - logmag)       # leave-one-out product
-    Q = wht_f(G) / q                                 # inverse WHT
-    Q = jnp.maximum(Q, PROB_FLOOR)
-    Chat = jnp.log(Q)
-    out_ref[...] = Chat - jnp.max(Chat, axis=2, keepdims=True)
+def supports(q: int) -> bool:
+    """True when the kernel handles GF(q)."""
+    return q in _WHT_FACTOR
 
 
-def _pick_tile(n: int, target: int) -> int:
-    """Largest divisor of n that is <= target (>=1)."""
-    for t in range(min(n, target), 0, -1):
-        if n % t == 0:
-            return t
-    return 1
+def frame_tile(q: int, batch: int) -> int:
+    """Frames per program: the largest power of two TB >= 16 that divides
+    the batch with a [q, TB] tile of at most 1024 elements (TB = 64 at
+    GF(16)), else 16; 0 if no tile divides the batch.
+
+    Measured on an H100 (PERF.md): at GF(16) B=4096 a 64-frame tile
+    decodes in 29.6 ms where 128 frames take 45.0 ms; at GF(256) B=512
+    a 32-frame tile is no faster than 16."""
+    tb = max(16, 1024 // q)
+    while tb >= 16:
+        if batch % tb == 0:
+            return tb
+        tb //= 2
+    return 0
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "wht_impl"))
-def cn_update_pallas(U: jnp.ndarray, interpret: bool = False,
-                     wht_impl: str = "auto") -> jnp.ndarray:
+def _wht(x, h, q: int, r: int):
+    """Unnormalized WHT of a [q, TB] tile along q (see module docstring)."""
+    dot = functools.partial(jnp.dot, precision=jax.lax.Precision.HIGHEST,
+                            preferred_element_type=jnp.float32)
+    if q == r:
+        return dot(h, x)
+    tb = x.shape[1]
+    y = dot(h, x.reshape(r, r * tb))                 # over the high index
+    y = jnp.transpose(y.reshape(r, r, tb), (1, 0, 2))
+    return dot(h, y.reshape(r, r * tb)).reshape(q, tb)   # over the low index
+
+
+def _kernel(u_ref, h_ref, o_ref, *, dc: int, q: int, r: int):
+    h = h_ref[...]
+
+    def spectrum(j):
+        u = u_ref[j]                                 # [q, TB]
+        e = jnp.exp(u - jnp.max(u, axis=0, keepdims=True))
+        return _wht(e / jnp.sum(e, axis=0, keepdims=True), h, q, r)
+
+    lsum = None
+    neg = None                                       # parity of minus signs
+    for j in range(dc):
+        f = spectrum(j)
+        lm = jnp.log(jnp.abs(f) + MAG_TINY)
+        nj = (f < 0).astype(jnp.int32)
+        lsum = lm if lsum is None else lsum + lm
+        neg = nj if neg is None else neg ^ nj
+    for j in range(dc):
+        f = spectrum(j)
+        lm = jnp.log(jnp.abs(f) + MAG_TINY)
+        s = jnp.where((neg ^ (f < 0).astype(jnp.int32)) != 0, -1.0, 1.0)
+        g = s * jnp.exp(lsum - lm)                   # leave-one-out product
+        qv = jnp.maximum(_wht(g, h, q, r) / q, PROB_FLOOR)
+        c = jnp.log(qv)
+        o_ref[j] = c - jnp.max(c, axis=0, keepdims=True)
+
+
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def cn_update(U: jnp.ndarray, interpret: bool = False) -> jnp.ndarray:
     """Fused CN update. U [M, dc, q, B] f32 log-domain x-domain -> same.
 
-    wht_impl: "roll" (default) = xor-permute butterflies on the VPU;
-    "mxu" = row-batched [q, q] Hadamard matmuls at Precision.HIGHEST —
-    measured accurate but NOT faster at GF(256) (see _cn_kernel), kept
-    flag-gated for the record."""
+    Requires supports(q) and frame_tile(q, B) > 0 (qspa.cn_update_bl_for
+    checks both)."""
     M, dc, q, B = U.shape
-    if wht_impl == "auto":
-        wht_impl = "roll"
-    # Mosaic keeps ~8 block-sized temporaries live on its 16 MiB VMEM stack
-    # (measured on device: 24.8 M stack for a [1,7,256,512] block = ~7
-    # arrays, OOM) — bound TM*TB so 8 blocks fit in 12 MiB, shrinking TB
-    # too when even a single-row block would blow the budget (large q*dc).
-    from nbldpc_tpu.kernels.cn_ems import (
-        VMEM_BUDGET, VMEM_LIMIT, _pick_lane_tile)
-
-    # the 8-live model was measured for the roll-path's select chains; the
-    # mxu path holds fewer temporaries, so give it 4x the tile budget
-    # (fewer, larger grid steps — less per-step ramp at TM=1 shapes)
-    budget = VMEM_BUDGET * (4 if wht_impl == "mxu" else 1)
-    budget_elems = max(1, budget // (8 * dc * q * 4))
-    # floor at 128: a sub-128 target makes _pick_lane_tile return the whole
-    # axis (no 128-multiple divisor <= target), defeating the VMEM bound
-    TB = _pick_lane_tile(B, max(128, min(512, budget_elems)))
-    # the lane axis is stored padded to >= 128 — budget against that
-    TM = _pick_tile(M, max(1, budget_elems // max(TB, 128)))
-    grid = (M // TM, B // TB)
-    spec = pl.BlockSpec(
-        (TM, dc, q, TB), lambda i, j: (i, 0, 0, j), memory_space=pltpu.VMEM
-    )
-    operands = [U]
-    in_specs = [spec]
-    if wht_impl == "mxu":
-        from nbldpc_tpu.kernels.wht import wht_matrix
-
-        H = jnp.asarray(wht_matrix(q), jnp.float32)
-        operands.append(jnp.broadcast_to(H, (TM * dc, q, q)))
-        in_specs.append(pl.BlockSpec((TM * dc, q, q), lambda i, j: (0, 0, 0),
-                                     memory_space=pltpu.VMEM))
+    tb = frame_tile(q, B)
+    if not tb:
+        raise ValueError(f"no frame tile divides batch {B}")
+    r = _WHT_FACTOR[q]
+    h = jnp.asarray(wht_matrix(r), jnp.float32)
+    spec = pl.BlockSpec((None, dc, q, tb), lambda i, j: (i, 0, 0, j))
     return pl.pallas_call(
-        functools.partial(_cn_kernel, q=q, wht=wht_impl),
+        functools.partial(_kernel, dc=dc, q=q, r=r),
         out_shape=jax.ShapeDtypeStruct(U.shape, U.dtype),
-        grid=grid,
-        in_specs=in_specs,
+        grid=(M, B // tb),
+        in_specs=[spec, pl.BlockSpec((r, r), lambda i, j: (0, 0))],
         out_specs=spec,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=VMEM_LIMIT),
+        # 8 warps at GF(256): measured equal to XLA there, 4 warps 2% slower
+        compiler_params=pltriton.CompilerParams(
+            num_warps=8 if q > 64 else 4, num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(*operands)
+        name="qspa_cn_update",
+    )(U, h)

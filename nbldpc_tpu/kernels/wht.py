@@ -42,8 +42,8 @@ def wht_axis(x: jnp.ndarray, axis: int) -> jnp.ndarray:
     """Unnormalized WHT along `axis` (length q = 2^p, static).
 
     Same butterfly as `wht`, with trailing axes kept intact — used by the
-    batch-last decode path where messages are [..., q, B] and the lane axis
-    must stay the Monte-Carlo batch (TPU lane utilization).
+    batch-last decode path where messages are [..., q, B] and the last axis
+    stays the Monte-Carlo batch.
     """
     axis = axis % x.ndim
     if axis == x.ndim - 1:

@@ -1,15 +1,16 @@
-"""Multi-host process-group init + deterministic per-host PRNG derivation.
+"""Multi-process initialization for runs that span processes.
 
 SURVEY.md §2.4: equivalent of the reference genre's (absent) NCCL/MPI layer.
-jax.distributed.initialize() discovers the process topology over DCN; the
-('snr','data') mesh then spans hosts, and the only cross-host traffic is the
-per-step counter reduction, which XLA lowers to a psum over ICI/DCN.
+jax.distributed.initialize() joins the processes into one JAX runtime; the
+('snr','data') mesh then spans them, and the only cross-device traffic is
+the per-step counter reduction, which XLA lowers to a psum (NCCL on GPUs).
+One process can also drive every card of a host, which needs no
+initialization at all.
 
 Determinism contract (SURVEY.md §5.2): results must be invariant to mesh
 shape and process count. That is achieved by deriving frame batches from a
 *global* key by (snr index, macro-batch index) — never from process index —
-so the same total frame set is simulated regardless of layout; per-host key
-derivation is provided only for explicitly host-local streams.
+so the same total frame set is simulated regardless of layout.
 """
 
 from __future__ import annotations
@@ -27,37 +28,18 @@ def initialize(
 ) -> None:
     """Initialize the JAX process group (no-op for single-process runs).
 
-    Arguments fall back to the standard env vars used by TPU slices
-    (auto-detected by jax.distributed) or NBLDPC_COORDINATOR / NBLDPC_NUM_PROCS
-    / NBLDPC_PROC_ID for manual CPU multi-process tests (SURVEY.md §4.6).
+    Arguments fall back to NBLDPC_COORDINATOR (host:port), NBLDPC_NUM_PROCS
+    and NBLDPC_PROC_ID. When none of them is given the run is one process
+    and nothing is initialized. A failure of jax.distributed.initialize()
+    propagates: a run that asked for several processes must not quietly
+    continue as one.
     """
     coordinator_address = coordinator_address or os.environ.get("NBLDPC_COORDINATOR")
     if num_processes is None and "NBLDPC_NUM_PROCS" in os.environ:
         num_processes = int(os.environ["NBLDPC_NUM_PROCS"])
     if process_id is None and "NBLDPC_PROC_ID" in os.environ:
         process_id = int(os.environ["NBLDPC_PROC_ID"])
-    if coordinator_address is None and num_processes is None:
-        # Auto-initialize ONLY when the environment clearly indicates a
-        # multi-process slice: a bare jax.distributed.initialize() on a
-        # single-chip box can block waiting for a coordinator that will
-        # never answer.
-        multiproc_env = any(
-            v in os.environ
-            for v in (
-                "JAX_COORDINATOR_ADDRESS",
-                "MEGASCALE_COORDINATOR_ADDRESS",
-                "TPU_WORKER_HOSTNAMES",
-                "CLOUD_TPU_TASK_ID",
-            )
-        )
-        if not multiproc_env:
-            return  # single-process local run
-        if jax.process_count() > 1:
-            return  # already initialized by the runtime
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass
+    if coordinator_address is None and num_processes is None and process_id is None:
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -68,10 +50,3 @@ def initialize(
 
 def process_info() -> tuple[int, int]:
     return jax.process_index(), jax.process_count()
-
-
-def host_local_key(key, stream: str = "local"):
-    """Fold the process index into a key — ONLY for host-local streams."""
-    import jax.random as jr
-
-    return jr.fold_in(jr.fold_in(key, hash(stream) % (2**31)), jax.process_index())

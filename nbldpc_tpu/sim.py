@@ -46,14 +46,13 @@ def get_cn_update(dec: DecoderConfig):
 def get_decode_fn(dec: DecoderConfig):
     """(graph, llr [B,N,q]) -> DecodeResult for the configured decoder.
 
-    All three decoders run the batch-last TPU-fast layout (decoders/
-    common.py decode_bl); the layouts are golden-tested to agree with the
+    All three decoders run the batch-last layout (decoders/common.py
+    decode_bl); the layouts are golden-tested to agree with the
     q-last paths and the numpy oracle frame-for-frame.
     """
     if dec.kind == "qspa":
         return lambda graph, llr: qspa.decode(
             graph, llr, dec.max_iters, dec.early_term, batch_last=True,
-            mm_precision=dec.mm_precision,
             stats_each_iter=dec.stats_each_iter,
         )
     if dec.kind == "ems":
@@ -127,6 +126,24 @@ def make_sim_step(
     if not zero_codeword and encoder is None:
         raise ValueError("random-codeword mode needs an encoder")
 
+    def decode_frames(llr):
+        """llr [S, B, N, q] -> hard [S, B, N], done [S, B], iters [S, B]."""
+        s, b = llr.shape[:2]
+        res = decode_fn(graph, llr.reshape(s * b, N, graph.q))
+        return (res.hard.reshape(s, b, N), res.done.reshape(s, b),
+                res.iters.reshape(s, b))
+
+    if batch_sharding is not None:
+        # Frames decode independently, so each device decodes its own shard
+        # with no collectives, and a kernel in the decoder (a pallas_call,
+        # which the SPMD partitioner cannot split) runs on local frames.
+        # Nothing inside communicates, so there is no varying-axis typing
+        # to check (check_vma=False).
+        decode_frames = jax.shard_map(
+            decode_frames, mesh=batch_sharding.mesh,
+            in_specs=batch_sharding.spec, out_specs=batch_sharding.spec,
+            check_vma=False)
+
     def _constrain(x):
         if batch_sharding is None:
             return x
@@ -150,8 +167,8 @@ def make_sim_step(
             x = modulate(cw, graph.q)
         y = _constrain(x + sig * jax.random.normal(kn, x.shape, dtype))
         llr = llr_init(y, sig, graph.q)                           # [S,B,N,q]
-        res = decode_fn(graph, llr.reshape(S * B, N, graph.q))
-        hard = _constrain(res.hard.reshape(S, B, N))
+        hard, done, iters = decode_frames(llr)
+        hard = _constrain(hard)
         sym_err = (hard != cw).astype(jnp.int32)                  # [S,B,N]
         x = hard ^ cw
         # gather-free popcount over the p bits of the GF(2^p) symbol diff
@@ -162,8 +179,8 @@ def make_sim_step(
             "frame_errors": jnp.sum(frame_err, axis=1).astype(jnp.int32),
             "symbol_errors": jnp.sum(sym_err, axis=(1, 2)),
             "bit_errors": jnp.sum(bit_err, axis=(1, 2)),
-            "iter_sum": jnp.sum(res.iters.reshape(S, B), axis=1),
-            "converged": jnp.sum(res.done.reshape(S, B).astype(jnp.int32), axis=1),
+            "iter_sum": jnp.sum(iters, axis=1),
+            "converged": jnp.sum(done.astype(jnp.int32), axis=1),
         }
 
     return step

@@ -48,12 +48,6 @@ class DecoderConfig:
                                     # exact all-row scan; n_r > 0 restricts
                                     # two-deviation pairs to the n_r most
                                     # reliable rows (fast GF(64) variant)
-    mm_precision: str = "f32"       # resident-kernel message dtype:
-                                    # "f32" (default; exact) | "bf16"
-                                    # (half the VMEM bytes/pass; opt-in for
-                                    # throughput runs — see
-                                    # benchmarks/ber_precision.py for the
-                                    # bf16-vs-f32 BER comparison harness)
     stats_each_iter: bool = True    # per-iteration hard/syndrome bookkeeping
                                     # in fixed-budget mode (early_term=False);
                                     # False = pure throughput mode (iters

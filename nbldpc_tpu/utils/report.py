@@ -49,6 +49,7 @@ def sweep_report(result, cfg=None) -> dict:
         "avg_iters": [float(x) for x in result.avg_iters],
         "frames": result.counters.frames.tolist(),
         "frame_errors": result.counters.frame_errors.tolist(),
+        "counters": result.counters.asdict(),
         "wall_seconds": result.wall_seconds,
         "throughput_syms_per_s": float(result.throughput_syms_per_s),
         "steps": result.steps,

@@ -1,7 +1,7 @@
 """Worker process for the 2-process multi-host test (SURVEY.md §4.6).
 
 Each process gets 4 virtual CPU devices; the ('snr','data') mesh spans both
-processes (8 global devices) over DCN-equivalent TCP. Runs a short fixed
+processes (8 global devices) over local TCP. Runs a short fixed
 sweep and prints the final counters as JSON (identical on every process —
 the counters are replicated after the psum).
 
@@ -11,6 +11,7 @@ Usage: python tests/multihost_worker.py <coordinator> <num_procs> <proc_id>
 import json
 import os
 import sys
+import tempfile
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
@@ -37,7 +38,8 @@ from nbldpc_tpu.utils.config import (  # noqa: E402
     ChannelConfig, CodeConfig, DecoderConfig, RunConfig, SimConfig,
 )
 
-path = f"/tmp/nbldpc_mh_{os.environ.get('NBLDPC_MH_TAG', 'x')}.alist"
+path = os.path.join(tempfile.gettempdir(),
+                    f"nbldpc_mh_{os.environ.get('NBLDPC_MH_TAG', 'x')}.alist")
 if proc_id == 0:
     save_alist(make_peg_code(16, 8, 4, dv=2, seed=5), path)
 # both processes regenerate deterministically if needed

@@ -306,13 +306,14 @@ class OracleDecoder:
         return out
 
     def _cn_ems_bubble(self, V):
-        """BUBBLE EMS (round 5): list-based staircase merges — the
-        co-designed oracle for nbldpc_tpu.decoders.ems merge="bubble".
-        Sorted nm-lists merge via the static staircase candidate set
-        {(t, s): (t+1)(s+1) <= nm} (sufficient to contain the top-nm of
-        the full nm^2 pair grid for sorted operands); tails are dropped
-        inside merges (unlike the classic compensated-dense scheme) and
-        compensation reappears only in the final dense scatter."""
+        """BUBBLE EMS: list-based staircase merges — the co-designed
+        oracle for nbldpc_tpu.decoders.ems merge="bubble". Sorted
+        nm-lists merge via the static staircase candidate set
+        {(t, s): (t+1)(s+1) <= 2 nm} (bubble_pairs, budget 2), augmented
+        inside every merge with fresh-index fill candidates at the classic
+        compensation floor (acc's compensation + op's best value); pairs
+        outside the staircase are dropped, and the final outputs are dense
+        scatters with the compensation fill."""
         from nbldpc_tpu.decoders.ems import bubble_pairs
 
         spec, gf = self.spec, self.gf

@@ -113,3 +113,23 @@ def test_syndrome_of_codeword(small_codes):
     bad = cw.at[:, 0].set(cw[:, 0] ^ 1)
     s2 = np.array(g.syndrome(bad))
     assert np.all(s2.sum(axis=1) > 0)
+
+
+def test_qc_code_properties():
+    """QC constructor: full rank (encoder exists), H*encode(u) == 0, and
+    per-slot weights actually uniform in slot mode."""
+    import jax
+
+    from nbldpc_tpu.codegen import make_qc_code
+
+    spec = make_qc_code(48, 24, 16, z=8, dv=2, seed=2, weight_mode="slot")
+    enc = Encoder(spec)
+    g = TannerGraph(spec)
+    u = jax.random.randint(jax.random.PRNGKey(3), (4, enc.k), 0, 16,
+                           dtype=jnp.int32)
+    cw = enc.encode(u)
+    syn = np.array(g.syndrome(cw))
+    assert (syn == 0).all()
+    for j in range(g.dc_max):
+        w = g.cn_w_np[g.cn_mask_np[:, j], j]
+        assert (w == w[0]).all(), f"slot {j} weights not uniform"

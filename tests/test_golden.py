@@ -120,7 +120,7 @@ def test_qspa_corrects_single_error(small_codes):
 
 @pytest.mark.parametrize("code_name", ["gf4_tiny", "gf16_tiny", "gf4_n96", "gf4_dv3"])
 def test_qspa_layouts_agree(small_codes, code_name):
-    """Batch-last (TPU-fast) and q-last paths implement identical updates:
+    """Batch-last and q-last paths implement identical updates:
     hard decisions, done flags and iteration counts must match exactly."""
     spec = small_codes[code_name]
     g, cw, llr = _noisy_llrs(spec, 16, 2.0, seed=7)

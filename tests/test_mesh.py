@@ -1,7 +1,7 @@
 """Mesh/sharding tests on 8 virtual CPU devices (SURVEY.md §4.6).
 
 Determinism contract: counters must be identical for any mesh shape and for
-the unsharded run — this replaces "race detection" for the TPU runtime
+the unsharded run — this replaces "race detection" for the device runtime
 (SURVEY.md §5.2).
 """
 
@@ -46,7 +46,7 @@ def test_make_mesh_shapes():
         make_mesh(snr=3)
 
 
-@pytest.mark.parametrize("shape", [(1, 8), (2, 4)])
+@pytest.mark.parametrize("shape", [(1, 8), (2, 4), (2, 2)])
 def test_sharded_equals_unsharded(cfg8, shape):
     """psum-reduced counters == single-device counters on the same frames,
     invariant to mesh shape."""

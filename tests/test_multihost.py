@@ -8,6 +8,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import uuid
 from pathlib import Path
 
@@ -64,7 +65,7 @@ def test_two_process_counters_match_single():
         ChannelConfig, CodeConfig, DecoderConfig, RunConfig, SimConfig,
     )
 
-    path = f"/tmp/nbldpc_mh_ref_{tag}.alist"
+    path = os.path.join(tempfile.gettempdir(), f"nbldpc_mh_ref_{tag}.alist")
     save_alist(make_peg_code(16, 8, 4, dv=2, seed=5), path)
     cfg = RunConfig(
         code=CodeConfig(path=path),

@@ -28,7 +28,7 @@ def test_edge_sharded_matches_unsharded():
     sigma = float(ebn0_to_sigma(2.0, spec.k / spec.n))
     llr = transmit(jax.random.PRNGKey(1), cw, sigma, spec.q)
 
-    ref = qspa.decode(g, llr, max_iters=6, early_term=True, cn_impl="xla")
+    ref = qspa.decode(g, llr, max_iters=6, early_term=True)
     mesh = _edge_mesh()
     with mesh:
         out = jax.jit(
@@ -45,7 +45,7 @@ def test_edge_sharded_fixed_budget():
     spec = make_peg_code(32, 16, 4, dv=2, seed=3)
     g = TannerGraph(spec)
     llr = jax.random.normal(jax.random.PRNGKey(4), (4, spec.n, spec.q)) * 3.0
-    ref = qspa.decode(g, llr, max_iters=4, early_term=False, cn_impl="xla")
+    ref = qspa.decode(g, llr, max_iters=4, early_term=False)
     mesh = _edge_mesh()
     with mesh:
         out = jax.jit(
